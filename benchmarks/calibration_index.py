@@ -76,7 +76,6 @@ def load_rows(root: Path):
                 "min_p": min_p,
                 "rhat_max": mixing.get("rhat_max"),
                 "min_ess": mixing.get("min_ess"),
-                "wall_s": s.get("sbc_wall_s"),
             }
         )
     return rows

@@ -6,7 +6,7 @@ distribution per choice. This checks the learned likelihood itself, separate
 from the SBC posterior check (miscalibration there could hide in the
 sampler; this isolates the estimator).
 
-Usage (TPU): MODEL_DIR=... python benchmarks/likelihood_fidelity.py
+Usage (GPU): MODEL_DIR=... python benchmarks/likelihood_fidelity.py
 Writes artifacts/likelihood_fidelity.json.
 """
 

@@ -3,7 +3,7 @@
 Reference workflow (src/notebooks/ryans_test.ipynb cells 0-4): simulate the
 choice-only model under a BoxUniform prior, train SNPE (amortized posterior)
 and SNLE (neural likelihood + MCMC), then sample both posteriors for one
-observed session. Rebuilt here on the TPU-native stack.
+observed session. Rebuilt here on the JAX stack.
 """
 
 import sys

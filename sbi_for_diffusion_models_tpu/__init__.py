@@ -1,12 +1,13 @@
-"""TPU-native simulation-based inference for pulse-based drift-diffusion models.
+"""Simulation-based inference for pulse-based drift-diffusion models in JAX.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the reference
-``SBI-for-Diffusion-Models`` pipeline (see SURVEY.md): pulse-DDM trial
-simulation (vmap+scan / Pallas kernels), a Mixed Neural Likelihood Estimator
-(categorical choice head + conditional rational-quadratic-spline flow over
-log-RT) in Flax, many-chain NUTS/HMC/slice MCMC over the learned likelihood,
-and simulation-based calibration -- all running end-to-end on device and
-scaling over a ``jax.sharding.Mesh``.
+A JAX/XLA/Pallas framework with the capabilities of the reference
+``SBI-for-Diffusion-Models`` pipeline (see SURVEY.md), run on one NVIDIA GPU:
+pulse-DDM trial simulation (vmap+scan / a Pallas kernel on the GPU), a Mixed
+Neural Likelihood Estimator (categorical choice head + conditional
+rational-quadratic-spline flow over log-RT) in plain JAX, many-chain
+NUTS/HMC/slice MCMC over the learned likelihood, and simulation-based
+calibration -- all running end-to-end on device and scaling over a
+``jax.sharding.Mesh``.
 """
 
 from . import constants

@@ -14,7 +14,18 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-__all__ = ["pairplot", "sbc_uniformity_stats", "sbc_ecdf_plot"]
+__all__ = ["pairplot", "sbc_uniformity_stats", "sbc_ecdf_plot", "can_plot"]
+
+
+def can_plot(what: str) -> bool:
+    """Whether matplotlib imports here. Figures are optional: callers skip
+    them, with one line saying so, where it does not."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        print(f"[analysis] matplotlib not available; skipped {what}")
+        return False
+    return True
 
 
 def pairplot(

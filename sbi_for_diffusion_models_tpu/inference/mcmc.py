@@ -5,7 +5,7 @@ API parity with sbi's ``MCMCPosterior`` as the reference uses it
 potential, a proposal (for initialization, ``init_strategy="proposal"``), and
 a theta transform; call ``.sample((S,), x=x_o)`` to get S posterior draws.
 
-TPU-native design: the potential is a pure function, so the whole MCMC run —
+Design: the potential is a pure function, so the whole MCMC run —
 warmup adaptation and sampling for all chains — is one compiled program.
 Chains are vmapped; the per-chain draw budget is ceil(S / num_chains) and
 chains are interleaved into the flat (S, D) output, matching the reference's

@@ -3,7 +3,8 @@
 Every public symbol of the reference module exists here with the same name,
 signature shape, and output convention (reference:
 src/sbi_for_diffusion_models/models/rt_choice_model.py). The compute path is
-the TPU kernel in ``ops/ddm_scan.py`` (and optionally ``ops/ddm_pallas.py``);
+the scan kernel in ``ops/ddm_scan.py`` or, on the GPU, the fused kernel in
+``ops/ddm_pallas.py``;
 the ``*_torch`` suffix is kept for drop-in compatibility but the functions
 accept/return JAX or NumPy arrays.
 """
@@ -26,13 +27,22 @@ from .choice_model import generate_pulse_sides
 cfg = RUN_CONFIG_PARAMS
 
 
-def dispatch_sim_kernel(sim_kernel: Optional[str] = None):
-    """Pick the simulator kernel: the fused Pallas kernel on TPU, the XLA
-    scan kernel elsewhere (cfg.SIM_KERNEL: "auto" | "scan" | "pallas")."""
+def resolve_sim_kernel(sim_kernel: Optional[str] = None) -> str:
+    """Name of the simulator kernel a call runs: the fused Pallas kernel on
+    the GPU (its Triton route compiles only there), the XLA scan kernel
+    elsewhere (cfg.SIM_KERNEL: "auto" | "scan" | "pallas")."""
     choice = sim_kernel or cfg.SIM_KERNEL
     if choice == "auto":
-        choice = "pallas" if jax.default_backend() == "tpu" else "scan"
-    if choice == "pallas":
+        choice = "pallas" if jax.default_backend() == "gpu" else "scan"
+    if choice not in ("scan", "pallas"):
+        raise ValueError(f"unknown SIM_KERNEL {choice!r}")
+    return choice
+
+
+def dispatch_sim_kernel(sim_kernel: Optional[str] = None):
+    """The simulator kernel :func:`resolve_sim_kernel` names, as one
+    callable with the scan kernel's signature."""
+    if resolve_sim_kernel(sim_kernel) == "pallas":
         from ..ops.ddm_pallas import ddm_rt_choice_pallas
 
         def run(theta, s, key, *, mu_sensory, collapse_rate, steps_per_pulse, n_max):

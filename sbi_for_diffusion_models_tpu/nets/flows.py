@@ -19,11 +19,11 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from .layers import dense, dense_init
 from .spline import num_spline_params, rq_spline_forward, rq_spline_inverse
 
 __all__ = ["NSFConfig", "CouplingNSF", "FlowEstimator", "build_flow", "fit_flow"]
@@ -41,15 +41,14 @@ class NSFConfig:
     tail_bound: float = 5.0
 
 
-class CouplingNSF(nn.Module):
-    """Stack of RQ-spline coupling transforms with alternating masks."""
+class CouplingNSF:
+    """Stack of RQ-spline coupling transforms with alternating masks, as pure
+    functions of an explicit parameter tree (built by :meth:`init`; the
+    conditioner of layer t is ``conditioner_t/layers_{0,2,4}``)."""
 
-    cfg: NSFConfig
-
-    def setup(self):
-        cfg = self.cfg
+    def __init__(self, cfg: NSFConfig):
+        self.cfg = cfg
         d = cfg.dim
-        n_params = num_spline_params(cfg.num_bins)
         masks = []
         for t in range(cfg.num_transforms):
             if d == 1:
@@ -58,61 +57,62 @@ class CouplingNSF(nn.Module):
                 mask = np.arange(d) % 2 == t % 2  # True = pass-through half
             masks.append(mask)
         self._masks = [jnp.asarray(m) for m in masks]
-        self.conditioners = [
-            nn.Sequential(
-                [
-                    nn.Dense(cfg.hidden_features),
-                    nn.relu,
-                    nn.Dense(cfg.hidden_features),
-                    nn.relu,
-                    nn.Dense(d * n_params),
-                ],
-                name=f"conditioner_{t}",
-            )
-            for t in range(cfg.num_transforms)
-        ]
 
-    def _params_for(self, t, z, context):
+    def init(self, key: jax.Array) -> dict:
+        cfg = self.cfg
+        H = cfg.hidden_features
+        widths = [cfg.dim + cfg.context_dim, H, H, cfg.dim * num_spline_params(cfg.num_bins)]
+        params = {}
+        for t in range(cfg.num_transforms):
+            name = f"conditioner_{t}"
+            params[name] = {
+                f"layers_{2 * i}": dense_init(
+                    key, (name, f"layers_{2 * i}"), widths[i], widths[i + 1]
+                )
+                for i in range(3)
+            }
+        return params
+
+    def _params_for(self, params, t, z, context):
         """Spline params for layer t given pass-through dims + context."""
         cfg = self.cfg
         mask = self._masks[t]
-        inp = jnp.concatenate(
-            [jnp.where(mask, z, 0.0), context], axis=-1
-        )
-        raw = self.conditioners[t](inp)
+        h = jnp.concatenate([jnp.where(mask, z, 0.0), context], axis=-1)
+        p = params[f"conditioner_{t}"]
+        h = jax.nn.relu(dense(p["layers_0"], h))
+        h = jax.nn.relu(dense(p["layers_2"], h))
+        raw = dense(p["layers_4"], h)
         return raw.reshape(raw.shape[:-1] + (cfg.dim, num_spline_params(cfg.num_bins)))
 
-    def log_prob(self, theta, context):
+    def log_prob(self, params, theta, context):
         """log q(theta | context); theta (..., d), context (..., c)."""
         cfg = self.cfg
         z = theta
         log_det = jnp.zeros(theta.shape[:-1])
         for t in range(cfg.num_transforms):
             mask = self._masks[t]
-            params = self._params_for(t, z, context)
+            sp = self._params_for(params, t, z, context)
             z_new, ld = rq_spline_forward(
-                z, params, num_bins=cfg.num_bins, tail_bound=cfg.tail_bound
+                z, sp, num_bins=cfg.num_bins, tail_bound=cfg.tail_bound
             )
             z = jnp.where(mask, z, z_new)
             log_det = log_det + jnp.sum(jnp.where(mask, 0.0, ld), axis=-1)
         base = jnp.sum(-_LOG_SQRT_2PI - 0.5 * z**2, axis=-1)
         return base + log_det
 
-    def sample(self, key, context):
+    def sample(self, params, key, context):
         """One draw per context row; context (..., c) -> (..., d)."""
         cfg = self.cfg
         z = jax.random.normal(key, context.shape[:-1] + (cfg.dim,))
         for t in reversed(range(cfg.num_transforms)):
             mask = self._masks[t]
-            params = self._params_for(t, z, context)  # pass-through dims of z are final
+            # pass-through dims of z are final
+            sp = self._params_for(params, t, z, context)
             z_new, _ = rq_spline_inverse(
-                z, params, num_bins=cfg.num_bins, tail_bound=cfg.tail_bound
+                z, sp, num_bins=cfg.num_bins, tail_bound=cfg.tail_bound
             )
             z = jnp.where(mask, z, z_new)
         return z
-
-    def __call__(self, theta, context):
-        return self.log_prob(theta, context)
 
 
 @dataclass
@@ -133,7 +133,7 @@ class FlowEstimator:
     def log_prob_fn(self, params, y, context):
         u = (y - self.y_mean) / self.y_std
         c = (context - self.c_mean) / self.c_std
-        lp = self._net.apply({"params": params}, u, c, method=CouplingNSF.log_prob)
+        lp = self._net.log_prob(params, u, c)
         return lp - jnp.sum(jnp.log(self.y_std))
 
     def log_prob(self, y, context):
@@ -141,17 +141,12 @@ class FlowEstimator:
 
     def sample(self, key, context):
         c = (jnp.asarray(context) - self.c_mean) / self.c_std
-        u = self._net.apply(
-            {"params": self.params}, key, c, method=CouplingNSF.sample
-        )
+        u = self._net.sample(self.params, key, c)
         return u * self.y_std + self.y_mean
 
 
 def build_flow(key, cfg: NSFConfig, **stats) -> FlowEstimator:
-    net = CouplingNSF(cfg)
-    y0 = jnp.zeros((1, cfg.dim))
-    c0 = jnp.zeros((1, cfg.context_dim))
-    params = jax.jit(net.init)(key, y0, c0)["params"]
+    params = jax.jit(CouplingNSF(cfg).init)(key)
     return FlowEstimator(
         cfg=cfg,
         params=params,

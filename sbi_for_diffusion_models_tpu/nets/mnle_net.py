@@ -1,4 +1,4 @@
-"""Mixed Neural Likelihood Estimator (MNLE) in Flax.
+"""Mixed Neural Likelihood Estimator (MNLE) in plain JAX.
 
 Owns the behavior the reference delegates to ``sbi``'s
 ``likelihood_nn(model="mnle", ...)`` builder and ``MixedDensityEstimator``
@@ -24,11 +24,11 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+from .layers import dense, dense_init, mlp, mlp_init
 from .spline import (
     num_circular_spline_params,
     num_spline_params,
@@ -87,7 +87,7 @@ class MNLEConfig:
     #
     # "log" (reference-style): the flow models z-scored log RT.
     #
-    # "pulse" (physics-informed, TPU extension): evidence arrives only at
+    # "pulse" (physics-informed, an extension): evidence arrives only at
     # discrete pulse times, so boundary crossings cluster tightly at pulse
     # arrivals — empirically >90% of non-censored RT mass lies within the
     # first 10% of a pulse interval even at prior-median drift. The RT
@@ -356,82 +356,103 @@ def pulse_physics_features(c_raw, theta_dim: int, pulse_dim: int, lam_index: int
     return jnp.stack(feats, axis=-1)
 
 
-# All MNLE matmuls run at HIGHEST precision: on TPU the default is a single
-# bf16 MXU pass (~1e-2 relative noise) which compounds through the
-# 10-transform spline stack into O(0.1-1) log-prob jitter — enough to
-# perturb NUTS trajectories and high-power SBC. The layers are tiny
-# (hidden=128), so exact f32 passes are nearly free, and they make the XLA
-# path bit-comparable with the Pallas-fused kernel (ops/mnle_pallas.py),
-# which is pinned to HIGHEST for the same reason.
+# All MNLE matmuls run at HIGHEST precision. On the GPU the float32 default
+# may use TF32 tensor-core passes (about three decimal digits), which compound
+# through the 10-transform spline stack into O(0.1-1) log-prob jitter —
+# enough to perturb NUTS trajectories and high-power SBC. HIGHEST keeps true
+# float32 products; the layers are small (hidden=128), so the cost is minor.
 _PRECISION = jax.lax.Precision.HIGHEST
 
 
-class _MLP(nn.Module):
-    hidden: int
-    out: int
-    depth: int = 2
-
-    @nn.compact
-    def __call__(self, x):
-        for _ in range(self.depth):
-            x = nn.relu(nn.Dense(self.hidden, precision=_PRECISION)(x))
-        return nn.Dense(self.out, precision=_PRECISION)(x)
+def _dense(p, x):
+    return dense(p, x, _PRECISION)
 
 
-class MNLENet(nn.Module):
-    """Raw network. Operates on already-standardized inputs:
-    ``u`` = z-scored (log-)rt scalar, ``c`` = z-scored condition vector."""
+def _mlp(p, x):
+    return mlp(p, x, _PRECISION)
 
-    cfg: MNLEConfig
 
-    def setup(self):
+class MNLENet:
+    """Raw network as pure functions of an explicit parameter tree (built by
+    :meth:`init`). Operates on already-standardized inputs: ``u`` = z-scored
+    (log-)rt scalar, ``c`` = z-scored condition vector."""
+
+    def __init__(self, cfg: MNLEConfig):
+        self.cfg = cfg
+
+    def _uses_embed(self):
         cfg = self.cfg
-        self.cat_net = _MLP(
-            cfg.hidden_features, cfg.num_categories, depth=cfg.trunk_depth
-        )
-        # Shared context trunk for the flow + one spline-parameter head per
-        # transform (pyknos-NSF style conditioners, fused for TPU: one trunk
-        # matmul feeds all 10 heads).
-        self.flow_trunk = _MLP(
-            cfg.hidden_features, cfg.hidden_features, depth=cfg.trunk_depth
-        )
+        return cfg.embed_dim > 0 and cfg.pulse_dim > 0
+
+    def context_dim(self) -> int:
+        """Width of :meth:`make_context`'s output."""
+        cfg = self.cfg
+        append = cfg.embed_mode == "append"
+        if cfg.pulse_dim <= 0 or not (self._uses_embed() or append):
+            return cfg.condition_dim
+        k = cfg.condition_dim - cfg.pulse_dim
+        width = (cfg.condition_dim if append else k) + len(_FEATURE_HORIZONS)
+        return width + (cfg.embed_dim if self._uses_embed() else 0)
+
+    def init(self, key: jax.Array) -> dict:
+        """Parameter tree with the module paths of the original Flax
+        estimator (``cat_net/Dense_i``, ``flow_trunk/...``, ``spline_head_i``,
+        ``affine_head``, ``pulse_embed``, ``pulse_slot_head``)."""
+        cfg = self.cfg
+        H = cfg.hidden_features
+        ctx = self.context_dim()
+        params = {
+            "cat_net": mlp_init(
+                key, ("cat_net",), ctx, H, cfg.num_categories, cfg.trunk_depth
+            ),
+            # Shared context trunk for the flow + one spline-parameter head
+            # per transform (pyknos-NSF style conditioners, fused: one trunk
+            # matmul feeds all 10 heads).
+            "flow_trunk": mlp_init(
+                key, ("flow_trunk",), ctx + cfg.num_categories, H, H,
+                cfg.trunk_depth,
+            ),
+        }
+        head_in = H
+        if cfg.rt_rep == "pulse":
+            head_in += 3 if cfg.grid_anchor == "absolute" else 1
         circular = cfg.rt_rep == "pulse" and cfg.grid_anchor == "absolute"
         head_params = (
             num_circular_spline_params(cfg.num_bins)
             if circular
             else num_spline_params(cfg.num_bins)
         )
-        self.flow_heads = [
-            nn.Dense(head_params, name=f"spline_head_{i}", precision=_PRECISION)
-            for i in range(cfg.num_transforms)
-        ]
+        for i in range(cfg.num_transforms):
+            name = f"spline_head_{i}"
+            params[name] = dense_init(key, (name,), head_in, head_params)
         if cfg.cond_affine and cfg.rt_rep != "pulse":
             # (mu, log_sigma) of the conditional location-scale layer
             # (MNLEConfig.cond_affine). Zero-init (kernel AND bias) makes the
             # layer exactly the identity at init, so training starts from
             # the plain spline-chain density and learns the conditional
             # shift/scale as a perturbation.
-            self.affine_head = nn.Dense(
-                2, name="affine_head", precision=_PRECISION,
-                kernel_init=nn.initializers.zeros,
+            params["affine_head"] = dense_init(
+                key, ("affine_head",), H, 2, zero_kernel=True
             )
-        if cfg.embed_dim > 0 and cfg.pulse_dim > 0:
-            self.pulse_embed = _MLP(
-                cfg.hidden_features, cfg.embed_dim, depth=cfg.embed_depth
+        if self._uses_embed():
+            params["pulse_embed"] = mlp_init(
+                key, ("pulse_embed",), cfg.pulse_dim + len(_FEATURE_HORIZONS),
+                H, cfg.embed_dim, cfg.embed_depth,
             )
         if cfg.rt_rep == "pulse":
             # Pulse-slot head: P(k | ctx, choice) over the RT grid.
-            self.pulse_slot_head = nn.Dense(
-                cfg.num_pulse_slots, precision=_PRECISION
+            params["pulse_slot_head"] = dense_init(
+                key, ("pulse_slot_head",), H, cfg.num_pulse_slots
             )
+        return params
 
-    def make_context(self, c_std, c_raw):
+    def make_context(self, params, c_std, c_raw):
         """Head input: z-scored condition, optionally augmented with the
         pulse summary block ("replace": raw pulses swapped for [embedding,
         physics features]; "append": raw pulses kept, [embedding?, features]
         appended)."""
         cfg = self.cfg
-        use_embed = cfg.embed_dim > 0 and cfg.pulse_dim > 0
+        use_embed = self._uses_embed()
         append = cfg.embed_mode == "append"
         if cfg.pulse_dim <= 0 or not (use_embed or append):
             return c_std
@@ -440,49 +461,55 @@ class MNLENet(nn.Module):
         parts = [c_std] if append else [c_std[..., :k]]
         if use_embed:
             parts.append(
-                self.pulse_embed(jnp.concatenate([c_std[..., k:], feats], -1))
+                _mlp(
+                    params["pulse_embed"],
+                    jnp.concatenate([c_std[..., k:], feats], -1),
+                )
             )
         parts.append(feats)
         return jnp.concatenate(parts, axis=-1)
 
-    def choice_logits(self, c):
+    def choice_logits(self, params, c):
         """(..., context_dim) -> (..., num_categories) log-probabilities."""
-        return jax.nn.log_softmax(self.cat_net(c), axis=-1)
+        return jax.nn.log_softmax(_mlp(params["cat_net"], c), axis=-1)
 
-    def _trunk_emb(self, c, choice_onehot):
+    def _trunk_emb(self, params, c, choice_onehot):
         ctx = jnp.concatenate([c, choice_onehot], axis=-1)
-        return nn.relu(self.flow_trunk(ctx))
+        return jax.nn.relu(_mlp(params["flow_trunk"], ctx))
 
-    def slot_logits(self, c, choice_onehot):
+    def slot_logits(self, params, c, choice_onehot):
         """(pulse rep) (..., ctx), (..., C) -> (..., K) log P(k | c, choice)."""
-        emb = self._trunk_emb(c, choice_onehot)
-        return jax.nn.log_softmax(self.pulse_slot_head(emb), axis=-1)
+        emb = self._trunk_emb(params, c, choice_onehot)
+        return jax.nn.log_softmax(_dense(params["pulse_slot_head"], emb), axis=-1)
 
-    def _flow_params(self, c, choice_onehot, k_feat=None):
-        emb = self._trunk_emb(c, choice_onehot)
+    def _flow_params(self, params, c, choice_onehot, k_feat=None):
+        emb = self._trunk_emb(params, c, choice_onehot)
+        affine = None
+        if self.cfg.cond_affine and self.cfg.rt_rep != "pulse":
+            a = _dense(params["affine_head"], emb)
+            # log_sigma clipped so an extreme conditioner output cannot
+            # produce inf/zero scales under MCMC's off-support probes.
+            affine = (a[..., 0], jnp.clip(a[..., 1], -7.0, 7.0))
         if k_feat is not None:
             # Pulse rep: the phase flow is conditioned on the slot index
             # (normalized scalar) — phase shape drifts with slot (later slots
             # are closer to leak equilibrium, broader phases).
             emb = jnp.concatenate([emb, k_feat], axis=-1)
-        params = [head(emb) for head in self.flow_heads]
-        affine = None
-        if self.cfg.cond_affine and self.cfg.rt_rep != "pulse":
-            a = self.affine_head(emb)
-            # log_sigma clipped so an extreme conditioner output cannot
-            # produce inf/zero scales under MCMC's off-support probes.
-            affine = (a[..., 0], jnp.clip(a[..., 1], -7.0, 7.0))
-        return params, affine
+        heads = [
+            _dense(params[f"spline_head_{i}"], emb)
+            for i in range(self.cfg.num_transforms)
+        ]
+        return heads, affine
 
-    def flow_log_prob(self, u, c, choice_onehot, k_feat=None):
+    def flow_log_prob(self, params, u, c, choice_onehot, k_feat=None):
         """log p(u | c, choice) for scalar u (shape (...,))."""
-        params, affine = self._flow_params(c, choice_onehot, k_feat)
+        heads, affine = self._flow_params(params, c, choice_onehot, k_feat)
         log_det = jnp.zeros_like(u)
         z = u
         if self.cfg.rt_rep == "pulse" and self.cfg.grid_anchor == "absolute":
             # Circular phase flow: uniform base on [0,1), periodic-continuous
             # density — the atom's phase can live anywhere on the circle.
-            for p in params:
+            for p in heads:
                 z, ld = rq_spline_circular(z, p, num_bins=self.cfg.num_bins)
                 log_det = log_det + ld
             return log_det  # log uniform(z) = 0
@@ -490,7 +517,7 @@ class MNLENet(nn.Module):
             mu, ls = affine
             z = (z - mu) * jnp.exp(-ls)
             log_det = log_det - ls
-        for p in params:  # normalizing direction: data -> base
+        for p in heads:  # normalizing direction: data -> base
             z, ld = rq_spline_forward(
                 z, p, num_bins=self.cfg.num_bins, tail_bound=self.cfg.tail_bound
             )
@@ -498,18 +525,18 @@ class MNLENet(nn.Module):
         base = -_LOG_SQRT_2PI - 0.5 * z**2
         return base + log_det
 
-    def flow_sample(self, key, c, choice_onehot, k_feat=None):
+    def flow_sample(self, params, key, c, choice_onehot, k_feat=None):
         """Draw u ~ p(u | c, choice); c/choice_onehot shaped (..., d)."""
-        params, affine = self._flow_params(c, choice_onehot, k_feat)
+        heads, affine = self._flow_params(params, c, choice_onehot, k_feat)
         if self.cfg.rt_rep == "pulse" and self.cfg.grid_anchor == "absolute":
             z = jax.random.uniform(key, c.shape[:-1])
-            for p in reversed(params):
+            for p in reversed(heads):
                 z, _ = rq_spline_circular(
                     z, p, num_bins=self.cfg.num_bins, inverse=True
                 )
             return z
         z = jax.random.normal(key, c.shape[:-1])
-        for p in reversed(params):  # generative direction: base -> data
+        for p in reversed(heads):  # generative direction: base -> data
             z, _ = rq_spline_inverse(
                 z, p, num_bins=self.cfg.num_bins, tail_bound=self.cfg.tail_bound
             )
@@ -517,19 +544,6 @@ class MNLENet(nn.Module):
             mu, ls = affine
             z = z * jnp.exp(ls) + mu
         return z
-
-    def __call__(self, u, c_std, c_raw, choice_onehot):
-        """Used only for init: touch all submodules."""
-        ctx = self.make_context(c_std, c_raw)
-        if self.cfg.rt_rep == "pulse":
-            n_kf = 3 if self.cfg.grid_anchor == "absolute" else 1
-            k_feat = jnp.zeros(u.shape + (n_kf,), u.dtype)
-            return (
-                self.choice_logits(ctx),
-                self.slot_logits(ctx, choice_onehot),
-                self.flow_log_prob(u, ctx, choice_onehot, k_feat),
-            )
-        return self.choice_logits(ctx), self.flow_log_prob(u, ctx, choice_onehot)
 
 
 @dataclass
@@ -572,12 +586,8 @@ class MNLE:
             c = (c - self.cond_mean) / self.cond_std
 
         onehot = jax.nn.one_hot(choice, cfg.num_categories)
-        ctx = self._net.apply(
-            {"params": params}, c, condition, method=MNLENet.make_context
-        )
-        logits = self._net.apply(
-            {"params": params}, ctx, method=MNLENet.choice_logits
-        )
+        ctx = self._net.make_context(params, c, condition)
+        logits = self._net.choice_logits(params, ctx)
         cat_lp = jnp.take_along_axis(logits, choice[..., None], axis=-1)[..., 0]
 
         if cfg.rt_rep == "pulse":
@@ -589,15 +599,10 @@ class MNLE:
             if cfg.z_score_x and cfg.grid_anchor != "absolute":
                 t = (t - self.x_mean) / self.x_std
                 log_det = log_det - jnp.log(self.x_std)
-            slot_all = self._net.apply(
-                {"params": params}, ctx, onehot, method=MNLENet.slot_logits
-            )
+            slot_all = self._net.slot_logits(params, ctx, onehot)
             slot_lp = jnp.take_along_axis(slot_all, k[..., None], axis=-1)[..., 0]
             k_feat = _slot_features(cfg, k, t_nd, t.dtype)
-            flow_lp = self._net.apply(
-                {"params": params}, t, ctx, onehot, k_feat,
-                method=MNLENet.flow_log_prob,
-            )
+            flow_lp = self._net.flow_log_prob(params, t, ctx, onehot, k_feat)
             rt_term = slot_lp + flow_lp + log_det + barrier
             not_censored = (choice != cfg.censored_category).astype(rt_term.dtype)
             return cat_lp + not_censored * rt_term
@@ -619,9 +624,7 @@ class MNLE:
             t, ld_s = tail_sharp_transform(cfg, t)
             log_det = log_det + ld_s
 
-        flow_lp = self._net.apply(
-            {"params": params}, t, ctx, onehot, method=MNLENet.flow_log_prob
-        )
+        flow_lp = self._net.flow_log_prob(params, t, ctx, onehot)
         if cfg.censor_rt:
             # Censored trials: P(choice | z) only (their RT is deterministic;
             # see MNLEConfig.censor_rt). Also stops flow gradients from the
@@ -634,33 +637,6 @@ class MNLE:
     def log_prob(self, x, condition):
         return self.log_prob_fn(self.params, jnp.asarray(x), jnp.asarray(condition))
 
-    def dispatch_log_prob(self, kernel: str = "auto", *, interpret: bool = False):
-        """Pick the log-prob implementation for potential/inference hot paths:
-        the Pallas-fused kernel on TPU, plain XLA elsewhere
-        (kernel: "auto" | "xla" | "pallas"; mirrors
-        ``models.rt_choice_model.dispatch_sim_kernel``).
-
-        The returned ``fn(x, condition)`` closes over the current params —
-        it differentiates w.r.t. inputs (the MCMC use case), not params.
-        """
-        choice = kernel or "auto"
-        if choice == "auto":
-            choice = "pallas" if jax.default_backend() == "tpu" else "xla"
-        if (
-            choice == "pallas"
-            and self.cfg.rt_rep == "pulse"
-            and self.cfg.grid_anchor != "absolute"
-        ):
-            # The fused kernel carries the slot head + circular phase flow
-            # only for the absolute anchor; the (deprecated) tnd anchor
-            # falls back to XLA so "auto" stays correct on TPU.
-            choice = "xla"
-        if choice == "pallas":
-            from ..ops.mnle_pallas import make_fused_logprob
-
-            return make_fused_logprob(self, interpret=interpret)
-        return lambda x, condition: self.log_prob_fn(self.params, x, condition)
-
     def sample_fn(self, params, key, condition):
         """One (rt, choice) draw per condition row; condition: (..., d)."""
         cfg = self.cfg
@@ -668,32 +644,23 @@ class MNLE:
         if cfg.z_score_theta:
             c = (c - self.cond_mean) / self.cond_std
         k_cat, k_flow = jax.random.split(key)
-        ctx = self._net.apply(
-            {"params": params}, c, condition, method=MNLENet.make_context
-        )
-        logits = self._net.apply({"params": params}, ctx, method=MNLENet.choice_logits)
+        ctx = self._net.make_context(params, c, condition)
+        logits = self._net.choice_logits(params, ctx)
         choice = jax.random.categorical(k_cat, logits, axis=-1)
         onehot = jax.nn.one_hot(choice, cfg.num_categories)
         if cfg.rt_rep == "pulse":
             k_slot, k_phi = jax.random.split(k_flow)
-            slot_all = self._net.apply(
-                {"params": params}, ctx, onehot, method=MNLENet.slot_logits
-            )
+            slot_all = self._net.slot_logits(params, ctx, onehot)
             k = jax.random.categorical(k_slot, slot_all, axis=-1)
             k_feat = _slot_features(
                 cfg, k, condition[..., cfg.tnd_index], jnp.float32
             )
-            u = self._net.apply(
-                {"params": params}, k_phi, ctx, onehot, k_feat,
-                method=MNLENet.flow_sample,
-            )
+            u = self._net.flow_sample(params, k_phi, ctx, onehot, k_feat)
             if cfg.z_score_x and cfg.grid_anchor != "absolute":
                 u = u * self.x_std + self.x_mean
             t = pulse_grid_join(cfg, k, u, condition[..., cfg.tnd_index])
         else:
-            u = self._net.apply(
-                {"params": params}, k_flow, ctx, onehot, method=MNLENet.flow_sample
-            )
+            u = self._net.flow_sample(params, k_flow, ctx, onehot)
             t = u
             if cfg.tail_sharp_k > 0:
                 t = tail_sharp_inverse(cfg, t)
@@ -730,13 +697,8 @@ def build_mnle(
         )
     if cfg.rt_rep not in ("log", "pulse", "shifted_log"):
         raise ValueError(f"unknown rt_rep {cfg.rt_rep!r}")
-    net = MNLENet(cfg)
-    u0 = jnp.zeros((1,), jnp.float32)
-    c0 = jnp.zeros((1, cfg.condition_dim), jnp.float32)
-    oh0 = jnp.zeros((1, cfg.num_categories), jnp.float32)
-    # jit the init: eager flax init dispatches hundreds of tiny ops, each
-    # individually compiled (~40s on CPU); one traced program is ~1s.
-    params = jax.jit(net.init)(key, u0, c0, c0, oh0)["params"]
+    # jit the init: one traced program instead of dozens of eager draws.
+    params = jax.jit(MNLENet(cfg).init)(key)
     if cond_mean is None:
         cond_mean = jnp.zeros((cfg.condition_dim,), jnp.float32)
     if cond_std is None:

@@ -37,19 +37,12 @@ def num_spline_params(num_bins: int) -> int:
     return 3 * num_bins - 1
 
 
-def _prepare_knots(
-    params: jnp.ndarray, num_bins: int, tail_bound: float, safe_ops: bool = False
-):
+def _prepare_knots(params: jnp.ndarray, num_bins: int, tail_bound: float):
     """Split + constrain raw params into knot positions and derivatives.
 
     params: (..., 3K-1) raw network output.
     Returns (x_knots, y_knots, derivs) with shapes (..., K+1), (..., K+1),
     (..., K+1); boundary derivatives pinned to 1 for linear tails.
-
-    ``safe_ops=True`` uses only ops that lower inside Pallas TPU kernels:
-    the cumulative sum becomes a (K x K) triangular matmul (Mosaic has no
-    ``cumsum``) and the endpoint pin becomes a concatenation instead of an
-    indexed update. Values match the default path to float rounding.
     """
     K = num_bins
     w_raw = params[..., :K]
@@ -66,33 +59,14 @@ def _prepare_knots(
     heights = min_h + (1.0 - min_h * K) * heights
 
     total = 2.0 * tail_bound
-    if safe_ops:
-        # Cumsum as a triangular matmul (Mosaic has no cumsum). HIGHEST
-        # precision: the MXU's default bf16 passes would shift knot positions
-        # by ~1e-2, which compounds through the transform stack.
-        tri = jnp.triu(jnp.ones((K, K), widths.dtype))
-        cum_w = jnp.dot(
-            widths, tri, preferred_element_type=widths.dtype,
-            precision=jax.lax.Precision.HIGHEST,
-        ) * total
-        cum_h = jnp.dot(
-            heights, tri, preferred_element_type=heights.dtype,
-            precision=jax.lax.Precision.HIGHEST,
-        ) * total
-        zeros = jnp.zeros_like(cum_w[..., :1])
-        top = jnp.full_like(cum_w[..., :1], total)
-        # Endpoints pinned by construction (cumsum rounding can drift them).
-        x_knots = jnp.concatenate([zeros, cum_w[..., : K - 1], top], -1) - tail_bound
-        y_knots = jnp.concatenate([zeros, cum_h[..., : K - 1], top], -1) - tail_bound
-    else:
-        cum_w = jnp.cumsum(widths, axis=-1) * total
-        cum_h = jnp.cumsum(heights, axis=-1) * total
-        zeros = jnp.zeros_like(cum_w[..., :1])
-        x_knots = jnp.concatenate([zeros, cum_w], axis=-1) - tail_bound
-        y_knots = jnp.concatenate([zeros, cum_h], axis=-1) - tail_bound
-        # Pin the exact endpoints (cumsum rounding can drift the last knot).
-        x_knots = x_knots.at[..., -1].set(tail_bound)
-        y_knots = y_knots.at[..., -1].set(tail_bound)
+    cum_w = jnp.cumsum(widths, axis=-1) * total
+    cum_h = jnp.cumsum(heights, axis=-1) * total
+    zeros = jnp.zeros_like(cum_w[..., :1])
+    x_knots = jnp.concatenate([zeros, cum_w], axis=-1) - tail_bound
+    y_knots = jnp.concatenate([zeros, cum_h], axis=-1) - tail_bound
+    # Pin the exact endpoints (cumsum rounding can drift the last knot).
+    x_knots = x_knots.at[..., -1].set(tail_bound)
+    y_knots = y_knots.at[..., -1].set(tail_bound)
 
     d_inner = min_d + jax.nn.softplus(d_raw)
     ones = jnp.ones_like(d_inner[..., :1])
@@ -113,35 +87,8 @@ def _searchsorted(knots: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
 
 
 def _take_gather(arr, idx):
-    """Per-row knot lookup via gather (fast on CPU/GPU and in plain XLA)."""
+    """Per-row knot lookup via gather."""
     return jnp.take_along_axis(arr, idx[..., None], axis=-1)[..., 0]
-
-
-def _bin_onehot(bin_knots, z, num_bins):
-    """Float one-hot (..., K) of the bin containing z, from ONE compare
-    sweep: S_j = [z >= knots[j+1]] for j < K-1, oh_j = S_{j-1} - S_j with
-    oh_0 = 1 - S_0 and oh_{K-1} = S_{K-2}. The top edge z == knots[K]
-    lands in bin K-1 (the _searchsorted clip). Built for the Pallas kernel
-    hot path: every knot lookup then becomes a weighted sum against this
-    ONE mask — the per-lookup iota/int-compare/select of _take_onehot was
-    ~40% of the fused MNLE kernel's per-transform VPU work (round-3
-    VERDICT #9)."""
-    dt = bin_knots.dtype
-    steps = (z[..., None] >= bin_knots[..., 1:num_bins]).astype(dt)  # (..., K-1)
-    lead = jnp.ones_like(steps[..., :1])
-    return jnp.concatenate([lead, steps], -1) - jnp.concatenate(
-        [steps, jnp.zeros_like(lead)], -1
-    )  # (..., K)
-
-
-def _take_lo(arr, oh):
-    """arr[..., k] via the bin one-hot: sum_j arr[..., j] * oh_j."""
-    return jnp.sum(arr[..., :-1] * oh, axis=-1)
-
-
-def _take_hi(arr, oh):
-    """arr[..., k + 1] via the same one-hot (shifted window)."""
-    return jnp.sum(arr[..., 1:] * oh, axis=-1)
 
 
 def rq_spline_forward(
@@ -150,17 +97,15 @@ def rq_spline_forward(
     *,
     num_bins: int,
     tail_bound: float,
-    use_gather: bool = True,
 ):
     """Forward RQ spline y = f(x) with linear tails.
 
     x: (...,) scalar per element; params: (..., 3K-1).
     Returns (y, log_det) each shaped like x. Outside [-B, B] the transform is
-    the identity with zero log-det (linear tails). ``use_gather=False``
-    switches knot lookup to the Pallas-safe masked sum (same values).
+    the identity with zero log-det (linear tails).
     """
     return _rq_spline(x, params, num_bins=num_bins, tail_bound=tail_bound,
-                      inverse=False, use_gather=use_gather)
+                      inverse=False)
 
 
 def rq_spline_inverse(
@@ -169,37 +114,25 @@ def rq_spline_inverse(
     *,
     num_bins: int,
     tail_bound: float,
-    use_gather: bool = True,
 ):
     """Inverse RQ spline x = f^{-1}(y); log_det is of the *inverse* map."""
     return _rq_spline(y, params, num_bins=num_bins, tail_bound=tail_bound,
-                      inverse=True, use_gather=use_gather)
+                      inverse=True)
 
 
-def _rq_spline(inputs, params, *, num_bins, tail_bound, inverse, use_gather=True):
-    x_knots, y_knots, derivs = _prepare_knots(
-        params, num_bins, tail_bound, safe_ops=not use_gather
-    )
+def _rq_spline(inputs, params, *, num_bins, tail_bound, inverse):
+    x_knots, y_knots, derivs = _prepare_knots(params, num_bins, tail_bound)
     inside = (inputs >= -tail_bound) & (inputs <= tail_bound)
     # Clamp inputs for the in-spline math; tail values pass through identity.
     z = jnp.clip(inputs, -tail_bound, tail_bound)
 
-    bin_knots = y_knots if inverse else x_knots
-    if use_gather:
-        k = _searchsorted(bin_knots, z)
-        x_k = _take_gather(x_knots, k)
-        x_k1 = _take_gather(x_knots, k + 1)
-        y_k = _take_gather(y_knots, k)
-        y_k1 = _take_gather(y_knots, k + 1)
-        d_k = _take_gather(derivs, k)
-        d_k1 = _take_gather(derivs, k + 1)
-    else:
-        # Pallas hot path: one compare sweep -> float bin one-hot; all six
-        # knot lookups are weighted sums against it (VERDICT #9).
-        oh = _bin_onehot(bin_knots, z, num_bins)
-        x_k, x_k1 = _take_lo(x_knots, oh), _take_hi(x_knots, oh)
-        y_k, y_k1 = _take_lo(y_knots, oh), _take_hi(y_knots, oh)
-        d_k, d_k1 = _take_lo(derivs, oh), _take_hi(derivs, oh)
+    k = _searchsorted(y_knots if inverse else x_knots, z)
+    x_k = _take_gather(x_knots, k)
+    x_k1 = _take_gather(x_knots, k + 1)
+    y_k = _take_gather(y_knots, k)
+    y_k1 = _take_gather(y_knots, k + 1)
+    d_k = _take_gather(derivs, k)
+    d_k1 = _take_gather(derivs, k + 1)
 
     w = x_k1 - x_k
     h = y_k1 - y_k
@@ -255,8 +188,7 @@ def num_circular_spline_params(num_bins: int) -> int:
     return 3 * num_bins + 1
 
 
-def _prepare_circular_knots(params: jnp.ndarray, num_bins: int,
-                            safe_ops: bool = False):
+def _prepare_circular_knots(params: jnp.ndarray, num_bins: int):
     K = num_bins
     w_raw = params[..., :K]
     h_raw = params[..., K : 2 * K]
@@ -269,26 +201,13 @@ def _prepare_circular_knots(params: jnp.ndarray, num_bins: int,
 
     widths = min_w + (1.0 - min_w * K) * jax.nn.softmax(w_raw, axis=-1)
     heights = min_h + (1.0 - min_h * K) * jax.nn.softmax(h_raw, axis=-1)
-    if safe_ops:
-        # Pallas-lowerable: cumsum as triangular matmul at HIGHEST precision,
-        # endpoint pin by construction (see _prepare_knots).
-        tri = jnp.triu(jnp.ones((K, K), widths.dtype))
-        cum_w = jnp.dot(widths, tri, preferred_element_type=widths.dtype,
-                        precision=jax.lax.Precision.HIGHEST)
-        cum_h = jnp.dot(heights, tri, preferred_element_type=heights.dtype,
-                        precision=jax.lax.Precision.HIGHEST)
-        zeros = jnp.zeros_like(cum_w[..., :1])
-        ones = jnp.ones_like(cum_w[..., :1])
-        x_knots = jnp.concatenate([zeros, cum_w[..., : K - 1], ones], -1)
-        y_knots = jnp.concatenate([zeros, cum_h[..., : K - 1], ones], -1)
-    else:
-        cum_w = jnp.cumsum(widths, axis=-1)
-        cum_h = jnp.cumsum(heights, axis=-1)
-        zeros = jnp.zeros_like(cum_w[..., :1])
-        x_knots = jnp.concatenate([zeros, cum_w], axis=-1)
-        y_knots = jnp.concatenate([zeros, cum_h], axis=-1)
-        x_knots = x_knots.at[..., -1].set(1.0)
-        y_knots = y_knots.at[..., -1].set(1.0)
+    cum_w = jnp.cumsum(widths, axis=-1)
+    cum_h = jnp.cumsum(heights, axis=-1)
+    zeros = jnp.zeros_like(cum_w[..., :1])
+    x_knots = jnp.concatenate([zeros, cum_w], axis=-1)
+    y_knots = jnp.concatenate([zeros, cum_h], axis=-1)
+    x_knots = x_knots.at[..., -1].set(1.0)
+    y_knots = y_knots.at[..., -1].set(1.0)
 
     d_inner = min_d + jax.nn.softplus(d_raw)  # (..., K): d_0 .. d_{K-1}
     derivs = jnp.concatenate([d_inner, d_inner[..., :1]], axis=-1)  # d_K = d_0
@@ -302,19 +221,15 @@ def rq_spline_circular(
     *,
     num_bins: int,
     inverse: bool = False,
-    use_gather: bool = True,
 ):
     """Circular RQ spline on [0,1): phi -> (out, log_det).
 
     Forward (normalizing): out = f(frac(phi - rot)). Inverse (generative):
     out = frac(f^{-1}(phi) + rot). Rotation is measure-preserving; the
     spline itself has f(0)=0, f(1)=1 with matching endpoint derivatives, so
-    the density is continuous across the wrap point. ``use_gather=False``
-    switches to Pallas-lowerable knot math (same values).
+    the density is continuous across the wrap point.
     """
-    x_knots, y_knots, derivs, rot = _prepare_circular_knots(
-        params, num_bins, safe_ops=not use_gather
-    )
+    x_knots, y_knots, derivs, rot = _prepare_circular_knots(params, num_bins)
 
     if inverse:
         z = jnp.clip(phi, 0.0, 1.0 - 1e-6)
@@ -322,17 +237,10 @@ def rq_spline_circular(
         z = (phi - rot) % 1.0
         z = jnp.clip(z, 0.0, 1.0 - 1e-6)
 
-    bin_knots = y_knots if inverse else x_knots
-    if use_gather:
-        k = _searchsorted(bin_knots, z)
-        x_k, x_k1 = _take_gather(x_knots, k), _take_gather(x_knots, k + 1)
-        y_k, y_k1 = _take_gather(y_knots, k), _take_gather(y_knots, k + 1)
-        d_k, d_k1 = _take_gather(derivs, k), _take_gather(derivs, k + 1)
-    else:
-        oh = _bin_onehot(bin_knots, z, num_bins)
-        x_k, x_k1 = _take_lo(x_knots, oh), _take_hi(x_knots, oh)
-        y_k, y_k1 = _take_lo(y_knots, oh), _take_hi(y_knots, oh)
-        d_k, d_k1 = _take_lo(derivs, oh), _take_hi(derivs, oh)
+    k = _searchsorted(y_knots if inverse else x_knots, z)
+    x_k, x_k1 = _take_gather(x_knots, k), _take_gather(x_knots, k + 1)
+    y_k, y_k1 = _take_gather(y_knots, k), _take_gather(y_knots, k + 1)
+    d_k, d_k1 = _take_gather(derivs, k), _take_gather(derivs, k + 1)
 
     w = x_k1 - x_k
     h = y_k1 - y_k

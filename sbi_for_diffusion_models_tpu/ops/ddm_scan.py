@@ -5,12 +5,12 @@ This replaces the reference's interpreted hot loop
 choice_model.py:144-171): a Python ``for t in range(16000)`` over batched torch
 ops with an early ``break`` once every trial has hit a bound.
 
-TPU-native design
------------------
+Design
+------
 * The time axis is an inherently sequential absorbing-boundary recurrence, so
   it stays sequential -- but as a compiled ``lax.scan``, not Python dispatch.
-* The trial axis is the parallel axis: all state is ``(N,)`` vectors living on
-  the VPU; shard the trial axis over a mesh to scale out.
+* The trial axis is the parallel axis: all state is ``(N,)`` vectors;
+  shard the trial axis over a mesh to scale out.
 * **Chunked early exit**: XLA requires a fixed trip count, so the reference's
   ``break`` becomes an outer scan over pulse-aligned chunks whose body is a
   ``lax.cond`` that skips the whole chunk once no trial is active. This
@@ -140,7 +140,7 @@ def ddm_rt_choice_scan(
     # Fast path: chunks are exactly pulse-aligned (the default), so the pulse
     # column gather hoists out of the inner time loop and the per-step body is
     # pure leak+noise+bound-check. The inner scan is unrolled to amortize
-    # per-step loop overhead on the VPU.
+    # per-step loop overhead.
     pulse_hoisted = chunk_steps == steps_per_pulse
     unroll = min(10, chunk_steps)
 

@@ -3,13 +3,13 @@ chain-sharded MCMC.
 
 The reference has no parallelism of any kind — single process, serial batch
 loops, ``num_workers=1`` (reference: data_simulator.py:48, mnle.py:86; see
-SURVEY.md section 2.3). This module is the TPU-native scale-out tier:
+SURVEY.md section 2.3). This module is the scale-out tier:
 
 * **Trial axis** is the data-parallel axis for simulation: the DDM scan kernel
   is elementwise over trials, so sharding theta/pulses over the mesh runs with
   zero collectives.
 * **MNLE training** is data-parallel via sharding constraints: batch sharded,
-  params replicated; XLA inserts the gradient ``psum`` over ICI.
+  params replicated; XLA inserts the gradient ``psum`` (NCCL on GPUs).
 * **MCMC chains** shard over the mesh (chains are embarrassingly parallel);
   same for SBC datasets.
 
@@ -108,7 +108,7 @@ def make_dp_train_step(loss_fn, tx, mesh: Mesh, axis_name: str = "data"):
 
     ``loss_fn(params, x, z) -> scalar``. Returns a jitted
     ``step(params, opt_state, x, z) -> (params, opt_state, loss)`` whose
-    gradient all-reduce XLA lowers to a ``psum`` over ICI.
+    gradient all-reduce XLA lowers to a ``psum`` (NCCL on GPUs).
     """
     import optax
 

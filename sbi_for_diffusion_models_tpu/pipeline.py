@@ -4,7 +4,7 @@ API parity with the reference driver (reference:
 rt_choice_model_pipeline.py:34-153): ``build_prior_theta`` and ``main`` with
 the same prior family, stage order, output filenames, and ``$OUTDIR``
 convention — but every compute stage runs on device (see the per-module docs
-for the TPU-native designs).
+for the designs).
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from pathlib import Path
 import jax
 import numpy as np
 
-from .analysis import pairplot
+from .analysis import can_plot, pairplot
 from .data_simulator import (
     simulate_observed_session,
     simulate_training_set_with_conditions,
@@ -121,12 +121,13 @@ def main(cfg: RunConfig = RUN_CONFIG_PARAMS, *, seed: int = 0) -> dict:
     # 5. Save artifacts with the reference's filenames (reference :116-131).
     np.save(outdir / "posterior_samples_theta.npy", np.asarray(samples))
     print(f"[pipeline] wrote {outdir / 'posterior_samples_theta.npy'}")
-    pairplot(
-        np.asarray(samples),
-        points=np.asarray(theta_true),
-        labels=THETA_LABELS,
-        save_path=outdir / "pairplot_theta.png",
-    )
+    if can_plot("the posterior pairplot"):
+        pairplot(
+            np.asarray(samples),
+            points=np.asarray(theta_true),
+            labels=THETA_LABELS,
+            save_path=outdir / "pairplot_theta.png",
+        )
 
     # 6. SBC (reference :134-150).
     t0 = time.time()

@@ -4,7 +4,7 @@ API parity with the reference (src/sbi_for_diffusion_models/potentials.py):
 ``ConditionedMNLELogLikelihood`` (reference :59-117) and
 ``ThetaOnlyPosteriorPotential`` (reference :7-57).
 
-TPU-native design: the reference materializes a (num_trials * num_thetas, 85)
+Design: the reference materializes a (num_trials * num_thetas, 85)
 tiled condition matrix and calls estimator.log_prob once over it (reference
 potentials.py:98-117). In JAX the same computation is two nested ``vmap``s —
 over thetas and over trials — which XLA fuses into one batched network forward
@@ -34,24 +34,13 @@ class ConditionedMNLELogLikelihood:
     s_i)`` for batches of global theta (reference potentials.py:59-117).
     """
 
-    def __init__(self, estimator: MNLE, local_theta, *, logprob_kernel: str = "xla"):
+    def __init__(self, estimator: MNLE, local_theta):
         self.estimator = estimator
         self.local_theta = jnp.asarray(local_theta, jnp.float32)
         if self.local_theta.ndim != 2:
             raise ValueError(
                 f"local_theta must be (num_trials, P), got {self.local_theta.shape}"
             )
-        # "pallas" routes the per-trial estimator forward through the fused
-        # VMEM-resident kernel (ops/mnle_pallas.py) — the hot op of every
-        # NUTS gradient. Note the fused path closes over the estimator's
-        # current params; the explicit ``params`` argument of ``log_lik_fn``
-        # only has effect on the "xla" path.
-        self.logprob_kernel = logprob_kernel
-        self._lp_fused = (
-            estimator.dispatch_log_prob(logprob_kernel)
-            if logprob_kernel != "xla"
-            else None
-        )
 
     def __call__(self, x, theta):
         return self.forward(x, theta)
@@ -60,28 +49,16 @@ class ConditionedMNLELogLikelihood:
         """Pure function: x (T, 2), theta (N, D) -> (N,) summed log-lik.
 
         Safe to close over under jit/grad/vmap; ``params`` is explicit so the
-        same compiled program serves different checkpoints (xla path).
+        same compiled program serves different checkpoints.
         """
         est = self.estimator
         s = self.local_theta  # (T, P)
         T = s.shape[0]
 
-        if self._lp_fused is not None and params is not est.params:
-            # The fused kernel closed over construction-time params; a caller
-            # passing a DIFFERENT checkpoint would silently evaluate stale
-            # weights. Fail loudly instead (rebuild the potential, or use
-            # logprob_kernel="xla", to serve multiple checkpoints).
-            raise ValueError(
-                "fused log-prob path was built for the estimator's current "
-                "params; pass estimator.params or use logprob_kernel='xla'"
-            )
-
         def per_theta(th):  # th: (D,)
             cond = jnp.concatenate(
                 [jnp.broadcast_to(th, (T, th.shape[-1])), s], axis=-1
             )
-            if self._lp_fused is not None:
-                return jnp.sum(self._lp_fused(x, cond))
             return jnp.sum(est.log_prob_fn(params, x, cond))
 
         return jax.vmap(per_theta)(theta)

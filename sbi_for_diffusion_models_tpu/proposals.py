@@ -7,7 +7,7 @@ training and the constant cancels in the posterior (reference
 proposals.py:42-44; keep it). ``ExtendedProposal`` is the product distribution
 over the 5+P-dim z handed to the MNLE trainer (reference proposals.py:47-74).
 
-TPU-native differences: sampling is driven by ``jax.random`` keys (an int seed
+Differences: sampling is driven by ``jax.random`` keys (an int seed
 is promoted via ``as_key``), generated fully on device, and vectorized over
 trials instead of the reference's per-trial Python loop
 (reference rt_choice_model.py:89-90).

@@ -6,8 +6,9 @@ written against the reference keeps working. The dataclass is frozen and
 hashable, which makes it safe to close over in jitted functions (it is static,
 never traced).
 
-TPU-specific knobs (all prefixed ``SIM_`` / ``MCMC_`` / ``TRAIN_``) extend the
-reference config without renaming anything the reference defines.
+Extension knobs (prefixed ``SIM_`` / ``MNLE_`` / ``MCMC_`` / ``TRAIN_`` /
+``SBC_``) extend the reference config without renaming anything the
+reference defines.
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ class RunConfig:
     SBC_POST_SAMPLES: int = 1500
 
     # ------------------------------------------------------------------
-    # TPU-native extensions (not present in the reference).
+    # Extensions (not present in the reference).
     # ------------------------------------------------------------------
     # MNLE architecture (reference hard-codes these at mnle.py:36-38).
     MNLE_HIDDEN_FEATURES: int = 128
@@ -190,12 +191,9 @@ class RunConfig:
     SBC_REMEDIATE_ROUNDS: int = 3
     SBC_REMEDIATE_TAU_INIT: bool = True
 
-    # Simulator kernel: "auto" (pallas on TPU, scan elsewhere), "scan"
-    # (pure XLA), or "pallas" (fused TPU kernel).
+    # Simulator kernel: "auto" (the fused Pallas kernel on the GPU, scan
+    # elsewhere), "scan" (pure XLA), or "pallas" (ops/ddm_pallas.py; GPU only).
     SIM_KERNEL: str = "auto"
-    # MNLE log-prob kernel for the MCMC potential hot path: "auto" (fused
-    # Pallas kernel on TPU, XLA elsewhere), "xla", or "pallas".
-    MNLE_LOGPROB_KERNEL: str = "auto"
     # Steps per early-exit chunk; pulse-aligned (200 steps = 1 pulse interval).
     SIM_CHUNK_STEPS: int = 200
 

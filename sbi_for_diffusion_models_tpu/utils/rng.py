@@ -2,7 +2,7 @@
 
 The reference mixes numpy Generators and torch global seeds
 (reference: rt_choice_model_pipeline.py:49-50, mnle.py:161-162,188-189). The
-TPU-native framework replaces that with one key-splitting discipline: every
+framework replaces that with one key-splitting discipline: every
 stochastic entry point takes a key (or an int seed that is promoted to a key),
 and derived streams are obtained with ``fold_in`` so they are reproducible and
 independent of batching/device count.

@@ -64,3 +64,35 @@ def test_fingerprint_guard(tmp_path):
     }
     with pytest.raises(ValueError, match="different"):
         restore_train_state(tmp_path / "ckpt", abstract, cfg=other)
+
+
+def test_train_mnle_resumes_from_npz_checkpoint(tmp_path, capsys):
+    """train_mnle writes a tree-path .npz checkpoint per epoch; a rerun with
+    the same config resumes after the last saved epoch with its params."""
+    from sbi_for_diffusion_models_tpu.mnle import train_mnle
+
+    key = jax.random.key(3)
+    z = jax.random.normal(key, (400, 4))
+    x = jnp.stack(
+        [jnp.exp(0.3 * jax.random.normal(jax.random.fold_in(key, 1), (400,))),
+         jax.random.randint(jax.random.fold_in(key, 2), (400,), 0, 3).astype(jnp.float32)],
+        -1,
+    )
+    cfg = RUN_CONFIG_PARAMS.replace(
+        MNLE_HIDDEN_FEATURES=8, MNLE_NUM_TRANSFORMS=1, MNLE_NUM_BINS=4,
+        TRAIN_BATCH_SIZE=100, TRAIN_MAX_EPOCHS=2,
+    )
+    ck = tmp_path / "train_ckpt"
+    kw = dict(checkpoint_dir=str(ck), checkpoint_every=1)
+    train_mnle(cfg, None, z, x, verbose=False, **kw)
+    assert latest_step(ck) == 1
+    assert sorted(p.name for p in ck.glob("step_*.npz")) == [
+        "step_00000000.npz", "step_00000001.npz"]
+    saved = np.load(ck / "step_00000001.npz")
+    capsys.readouterr()
+    est = train_mnle(cfg, None, z, x, verbose=True, **kw)
+    assert "resumed from epoch 1" in capsys.readouterr().out
+    for kp, leaf in jax.tree_util.tree_flatten_with_path(est.params)[0]:
+        np.testing.assert_array_equal(
+            np.asarray(leaf), saved["['params']" + jax.tree_util.keystr(kp)]
+        )

@@ -1,5 +1,5 @@
 """Deep-ensemble MNLE (mnle.MNLEEnsemble): mixture likelihood semantics,
-duck-typing through the potential stack, persistence, fused-kernel parity.
+duck-typing through the potential stack, persistence.
 
 No reference counterpart — the reference trains a single estimator
 (src/sbi_for_diffusion_models/mnle.py:16-50); the ensemble is this
@@ -124,17 +124,6 @@ def test_sample_rows_come_from_members(ens):
         assert any(
             np.allclose(d[r], member_draws[k, r]) for k in range(len(ens.members))
         )
-
-
-def test_dispatch_pallas_interpret_parity(ens):
-    """The fused-kernel ensemble path (what the TPU SBC run uses) matches
-    the XLA mixture."""
-    x, cond = _data(jax.random.key(8), 19)
-    ref = ens.dispatch_log_prob("xla")(x, cond)
-    got = ens.dispatch_log_prob("pallas", interpret=True)(x, cond)
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(ref), rtol=2e-5, atol=2e-5
-    )
 
 
 def test_save_load_roundtrip(tmp_path, monkeypatch):

@@ -312,12 +312,11 @@ def test_pulse_rep_log_prob_normalizes(anchor):
             )
             total += jnp.trapezoid(jnp.exp(lp), rts)
     # categorical mass of the censored category
-    logits = est._net.apply(
-        {"params": est.params},
-        est._net.apply({"params": est.params},
-                       (cond - est.cond_mean) / est.cond_std, cond,
-                       method=est._net.make_context),
-        method=est._net.choice_logits,
+    logits = est._net.choice_logits(
+        est.params,
+        est._net.make_context(
+            est.params, (cond - est.cond_mean) / est.cond_std, cond
+        ),
     )
     p_cens = float(jnp.exp(logits[2]))
     assert abs(float(total) + p_cens - 1.0) < 0.01, (
@@ -356,11 +355,9 @@ def test_pulse_rep_learns_atomic_rts():
     # slot head must put most mass on the correct slot per condition
     cond = z[:7]
     c_std = (cond - est.cond_mean) / est.cond_std
-    ctx = est._net.apply({"params": est.params}, c_std, cond,
-                         method=est._net.make_context)
+    ctx = est._net.make_context(est.params, c_std, cond)
     oh = jax.nn.one_hot(jnp.asarray(x[:7, 1], jnp.int32), 3)
-    slot_lp = est._net.apply({"params": est.params}, ctx, oh,
-                             method=est._net.slot_logits)
+    slot_lp = est._net.slot_logits(est.params, ctx, oh)
     k_hat = jnp.argmax(slot_lp, -1)
     # default anchor is absolute: expected slot = floor(rt / Delta) per row.
     # Atoms near a slot boundary legitimately split mass across the two
@@ -469,24 +466,6 @@ def test_censored_rt_likelihood():
     cens = samp[:, 1] == 2.0
     assert cens.any()
     np.testing.assert_allclose(samp[cens, 0], T_MAX)
-
-
-def test_censored_rt_fused_kernel_parity():
-    from sbi_for_diffusion_models_tpu.ops.mnle_pallas import make_fused_logprob
-
-    cfg = MNLEConfig(condition_dim=6, num_categories=3, censor_rt=True, **SMALL)
-    est = build_mnle(jax.random.key(23), cfg)
-    fused = make_fused_logprob(est, interpret=True)
-    key = jax.random.key(24)
-    rt = jnp.exp(0.4 * jax.random.normal(jax.random.fold_in(key, 0), (24,)))
-    choice = jax.random.randint(jax.random.fold_in(key, 1), (24,), 0, 3)
-    x = jnp.stack([rt, choice.astype(jnp.float32)], -1)
-    cond = jax.random.normal(jax.random.fold_in(key, 2), (24, 6))
-    np.testing.assert_allclose(
-        np.asarray(fused(x, cond)),
-        np.asarray(est.log_prob_fn(est.params, x, cond)),
-        rtol=2e-5, atol=2e-5,
-    )
 
 
 def test_save_load_roundtrip(tmp_path, untrained, monkeypatch):
@@ -635,37 +614,6 @@ def test_cond_affine_with_pulse_rep_rejected():
         train_mnle(cfg, None, z, x, verbose=False)
 
 
-def test_log_condition_dims_fused_parity():
-    """The Pallas fused path applies the same conditioning transform."""
-    from sbi_for_diffusion_models_tpu.ops.mnle_pallas import make_fused_logprob
-
-    cfg = MNLEConfig(
-        condition_dim=9, num_categories=3, log_condition_dims=(1, 2, 3),
-        hidden_features=32, num_transforms=4, num_bins=8,
-    )
-    base = build_mnle(jax.random.key(7), cfg)
-    est = base.__class__(
-        cfg=cfg,
-        params=base.params,
-        cond_mean=0.1 * jnp.arange(9, dtype=jnp.float32),
-        cond_std=jnp.linspace(0.5, 2.0, 9),
-        x_mean=jnp.float32(0.3),
-        x_std=jnp.float32(1.7),
-        train_meta=None,
-    )
-    fused = make_fused_logprob(est, interpret=True)
-    k1, k2, k3 = jax.random.split(jax.random.key(8), 3)
-    rt = jnp.exp(0.5 * jax.random.normal(k1, (23,)))
-    choice = jax.random.randint(k2, (23,), 0, 3).astype(jnp.float32)
-    x = jnp.stack([rt, choice], -1)
-    cond = jnp.abs(jax.random.normal(k3, (23, 9))) + 0.1
-    np.testing.assert_allclose(
-        np.asarray(fused(x, cond)),
-        np.asarray(est.log_prob_fn(est.params, x, cond)),
-        rtol=2e-5, atol=2e-5,
-    )
-
-
 # ---------------------------------------------------------------------------
 # Shifted-log RT representation (rt_rep="shifted_log": flow over decision
 # time log(rt - t_nd); hard onset built into the representation)
@@ -695,12 +643,11 @@ def test_shifted_log_normalizes():
         x = jnp.stack([rts, jnp.full_like(rts, c)], -1)
         lp = jax.jit(est.log_prob)(x, jnp.broadcast_to(cond, (rts.shape[0], 9)))
         total += jnp.trapezoid(jnp.exp(lp), rts)
-    logits = est._net.apply(
-        {"params": est.params},
-        est._net.apply({"params": est.params},
-                       (cond - est.cond_mean) / est.cond_std, cond,
-                       method=est._net.make_context),
-        method=est._net.choice_logits,
+    logits = est._net.choice_logits(
+        est.params,
+        est._net.make_context(
+            est.params, (cond - est.cond_mean) / est.cond_std, cond
+        ),
     )
     p_cens = float(jnp.exp(logits[2]))
     assert abs(float(total) + p_cens - 1.0) < 0.02, (
@@ -766,12 +713,11 @@ def test_tail_sharp_normalizes():
         x = jnp.stack([rts, jnp.full_like(rts, c)], -1)
         lp = jax.jit(est.log_prob)(x, jnp.broadcast_to(cond, (rts.shape[0], 9)))
         total += jnp.trapezoid(jnp.exp(lp), rts)
-    logits = est._net.apply(
-        {"params": est.params},
-        est._net.apply({"params": est.params},
-                       (cond - est.cond_mean) / est.cond_std, cond,
-                       method=est._net.make_context),
-        method=est._net.choice_logits,
+    logits = est._net.choice_logits(
+        est.params,
+        est._net.make_context(
+            est.params, (cond - est.cond_mean) / est.cond_std, cond
+        ),
     )
     p_cens = float(jnp.exp(logits[2]))
     assert abs(float(total) + p_cens - 1.0) < 0.02, (
@@ -822,36 +768,6 @@ def test_tail_sharp_suppresses_near_onset_density():
     )
     assert drop > 5.0, f"near-onset suppression only {drop} log-units"
     assert bulk_shift < 0.5, f"bulk density moved by {bulk_shift} log-units"
-
-
-def test_tail_sharp_fused_parity():
-    """The sharpening rides outside the Pallas kernel; fused value and
-    gradient must match the XLA path with k > 0."""
-    from sbi_for_diffusion_models_tpu.ops.mnle_pallas import (
-        make_fused_logprob,
-    )
-
-    est, cfg = _sharp_est()
-    fused = make_fused_logprob(est, interpret=True)
-    k1, k2, k3 = jax.random.split(jax.random.key(43), 3)
-    t_nd = 0.3
-    rt = t_nd + jnp.exp(jax.random.normal(k1, (19,)) * 2.0 - 1.0)
-    choice = jax.random.randint(k2, (19,), 0, 3).astype(jnp.float32)
-    x = jnp.stack([rt, choice], -1)
-    cond = jnp.abs(jax.random.normal(k3, (19, 9))) + 0.1
-    cond = cond.at[:, 4].set(t_nd)
-    np.testing.assert_allclose(
-        np.asarray(fused(x, cond)),
-        np.asarray(est.log_prob_fn(est.params, x, cond)),
-        rtol=2e-5, atol=2e-5,
-    )
-    g_ref = jax.grad(
-        lambda c: jnp.sum(est.log_prob_fn(est.params, x, c))
-    )(cond)
-    g_fused = jax.grad(lambda c: jnp.sum(fused(x, c)))(cond)
-    np.testing.assert_allclose(
-        np.asarray(g_fused), np.asarray(g_ref), rtol=1e-4, atol=1e-5
-    )
 
 
 def test_shifted_log_requires_censoring():
@@ -960,19 +876,14 @@ def test_cond_affine_exact_identity():
     u = jnp.linspace(-3.0, 3.0, B)
     c = jnp.abs(jax.random.normal(jax.random.key(48), (B, 9))) + 0.1
     oh = jax.nn.one_hot(jnp.zeros((B,), jnp.int32), 3)
-    lp_a = net_a.apply({"params": est_a.params}, u, c, oh,
-                       method=MNLENet.flow_log_prob)
-    lp_0 = net_0.apply({"params": est_a.params},
-                       (u - mu) * jnp.exp(-ls), c, oh,
-                       method=MNLENet.flow_log_prob)
+    lp_a = net_a.flow_log_prob(est_a.params, u, c, oh)
+    lp_0 = net_0.flow_log_prob(est_a.params, (u - mu) * jnp.exp(-ls), c, oh)
     np.testing.assert_allclose(
         np.asarray(lp_a), np.asarray(lp_0) - ls, rtol=1e-5, atol=1e-5
     )
     key = jax.random.key(49)
-    s_a = net_a.apply({"params": est_a.params}, key, c, oh,
-                      method=MNLENet.flow_sample)
-    s_0 = net_0.apply({"params": est_a.params}, key, c, oh,
-                      method=MNLENet.flow_sample)
+    s_a = net_a.flow_sample(est_a.params, key, c, oh)
+    s_0 = net_0.flow_sample(est_a.params, key, c, oh)
     np.testing.assert_allclose(
         np.asarray(s_a), np.asarray(s_0) * np.exp(ls) + mu,
         rtol=1e-5, atol=1e-5,
@@ -998,10 +909,8 @@ def test_cond_affine_identity_at_init():
     u = jnp.linspace(-2.5, 2.5, B)
     c = jnp.abs(jax.random.normal(jax.random.key(51), (B, 9))) + 0.1
     oh = jax.nn.one_hot(jnp.ones((B,), jnp.int32), 3)
-    lp_a = net_a.apply({"params": est_a.params}, u, c, oh,
-                       method=MNLENet.flow_log_prob)
-    lp_0 = net_0.apply({"params": est_a.params}, u, c, oh,
-                       method=MNLENet.flow_log_prob)
+    lp_a = net_a.flow_log_prob(est_a.params, u, c, oh)
+    lp_0 = net_0.flow_log_prob(est_a.params, u, c, oh)
     np.testing.assert_allclose(
         np.asarray(lp_a), np.asarray(lp_0), rtol=1e-6, atol=1e-6
     )
@@ -1024,47 +933,15 @@ def test_cond_affine_normalizes():
         x = jnp.stack([rts, jnp.full_like(rts, c)], -1)
         lp = jax.jit(est.log_prob)(x, jnp.broadcast_to(cond, (rts.shape[0], 9)))
         total += jnp.trapezoid(jnp.exp(lp), rts)
-    logits = est._net.apply(
-        {"params": est.params},
-        est._net.apply({"params": est.params},
-                       (cond - est.cond_mean) / est.cond_std, cond,
-                       method=est._net.make_context),
-        method=est._net.choice_logits,
+    logits = est._net.choice_logits(
+        est.params,
+        est._net.make_context(
+            est.params, (cond - est.cond_mean) / est.cond_std, cond
+        ),
     )
     p_cens = float(jnp.exp(logits[2]))
     assert abs(float(total) + p_cens - 1.0) < 0.02, (
         f"sum over non-censored = {float(total)}, P(cens) = {p_cens}"
-    )
-
-
-def test_cond_affine_fused_parity():
-    """The affine's (mu, log_sigma) columns ride the fused kernel's head
-    matmul; fused value and gradient must match the XLA path."""
-    from sbi_for_diffusion_models_tpu.ops.mnle_pallas import (
-        make_fused_logprob,
-    )
-
-    est, cfg = _affine_est()
-    est = _with_random_affine(est)  # nontrivial affine (init is identity)
-    fused = make_fused_logprob(est, interpret=True)
-    k1, k2, k3 = jax.random.split(jax.random.key(51), 3)
-    t_nd = 0.3
-    rt = t_nd + jnp.exp(jax.random.normal(k1, (19,)) * 2.0 - 1.0)
-    choice = jax.random.randint(k2, (19,), 0, 3).astype(jnp.float32)
-    x = jnp.stack([rt, choice], -1)
-    cond = jnp.abs(jax.random.normal(k3, (19, 9))) + 0.1
-    cond = cond.at[:, 4].set(t_nd)
-    np.testing.assert_allclose(
-        np.asarray(fused(x, cond)),
-        np.asarray(est.log_prob_fn(est.params, x, cond)),
-        rtol=2e-5, atol=2e-5,
-    )
-    g_ref = jax.grad(
-        lambda c: jnp.sum(est.log_prob_fn(est.params, x, c))
-    )(cond)
-    g_fused = jax.grad(lambda c: jnp.sum(fused(x, c)))(cond)
-    np.testing.assert_allclose(
-        np.asarray(g_fused), np.asarray(g_ref), rtol=1e-4, atol=1e-5
     )
 
 

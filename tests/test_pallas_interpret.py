@@ -1,31 +1,31 @@
-"""Pallas kernel CPU-CI coverage via the TPU *interpret* mode.
+"""Pallas simulator kernel (Triton route) on CPU through interpret mode.
 
-The flagship bench kernel (``ops/ddm_pallas.py``) previously ran only on real
-TPU hardware (tests/test_pallas_tpu.py is skipped off-TPU), so its shapes,
-layout, indexing, and while-loop semantics could regress silently on CPU-run
-iterations. ``pltpu.InterpretParams`` emulates the whole Mosaic kernel —
-including ``pltpu.prng_seed`` / ``prng_random_bits`` — on CPU, so every
-``pytest tests/`` run now exercises it.
+``ops/ddm_pallas.py`` compiles only for the GPU; ``interpret=True`` runs the
+same kernel body on CPU, so every ``pytest tests/`` run exercises its
+shapes, padding, indexing and while-loop semantics.
 
 Determinism strategy: with ``mu_sensory=0`` the diffusion term vanishes and
 both kernels follow the identical leak + pulse-kick recurrence (reference
 rt_choice_model.py:186-204), so the Pallas output must match the XLA scan
 kernel *exactly* (not just distributionally) — and match analytic hit times.
-The HW-PRNG noise path itself is validated distributionally on TPU
-(tests/test_pallas_tpu.py); here a smoke check only asserts it produces
-finite, in-range output.
+The in-kernel noise (threefry-2x32 + Box-Muller) is checked here against
+``jax.random``'s threefry and by its moments; distributional parity with
+the scan kernel at full size is a GPU test (tests/test_pallas_gpu.py).
 
 Small shapes keep the interpreter fast: t_max=0.8 s -> 1,600 steps,
-tile_rows=8 -> one (8, 128) tile of 1,024 trials.
+block_trials=16.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
-from sbi_for_diffusion_models_tpu.ops.ddm_pallas import ddm_rt_choice_pallas
+from sbi_for_diffusion_models_tpu.ops.ddm_pallas import (
+    box_muller,
+    ddm_rt_choice_pallas,
+    threefry2x32,
+)
 from sbi_for_diffusion_models_tpu.ops.ddm_scan import ddm_rt_choice_scan
 
 DT = 5e-4
@@ -33,7 +33,6 @@ T_MAX = 0.8  # 1600 steps, 8 pulses
 N_MAX = 1600
 SPP = 200
 P = 8
-INTERP = pltpu.InterpretParams()
 
 
 def _run_both(theta, pulses, *, mu_sensory=0.0, collapse_rate=0.0, seed=0):
@@ -50,8 +49,8 @@ def _run_both(theta, pulses, *, mu_sensory=0.0, collapse_rate=0.0, seed=0):
             theta,
             pulses,
             jax.random.key(seed),
-            tile_rows=8,
-            interpret=INTERP,
+            block_trials=16,
+            interpret=True,
             **common,
         )
     )
@@ -151,26 +150,90 @@ def test_zero_noise_collapsing_bounds_match_scan():
     np.testing.assert_array_equal(xp[:, 1], 1.0)
 
 
-def test_hw_prng_noise_path_runs_in_interpreter():
-    """Noise path smoke check: the Box-Muller HW-PRNG code emits finite,
-    in-range (rt, choice). The interpreter's PRNG emulation ignores
-    ``prng_seed`` (fixed stream), so seed-sensitivity and distribution-level
-    parity with the scan kernel are asserted on TPU in test_pallas_tpu.py."""
-    N = 64
+def _noise_kwargs(**kw):
+    return dict(mu_sensory=1.0, dt=DT, t_max=T_MAX, steps_per_pulse=SPP,
+                n_max=N_MAX, interpret=True, **kw)
+
+
+def test_threefry_matches_jax_random():
+    """The in-kernel hash is bit-identical to jax.random's threefry2x32."""
+    from jax._src import prng
+
+    k = jnp.asarray([0x243F6A88, 0x85A308D3], jnp.uint32)
+    c0 = jnp.arange(64, dtype=jnp.uint32)
+    c1 = jnp.arange(64, dtype=jnp.uint32) * jnp.uint32(2654435761)
+    got = threefry2x32(k[0], k[1], c0, c1)
+    want = prng.threefry2x32_p.bind(k[0], k[1], c0, c1)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+
+
+def test_in_kernel_normals_moments_and_ks():
+    """Box-Muller over threefry words, counted by (trial, step pair) as in
+    the kernel, gives independent standard normals."""
+    from scipy import stats
+
+    n = 1 << 16
+    trial = jnp.arange(n, dtype=jnp.uint32) % 512
+    pair = jnp.arange(n, dtype=jnp.uint32) // 512
+    z0, z1 = box_muller(*threefry2x32(jnp.uint32(7), jnp.uint32(11), trial, pair))
+    z0, z1 = np.asarray(z0, np.float64), np.asarray(z1, np.float64)
+    for z in (z0, z1):
+        assert abs(z.mean()) < 4 / np.sqrt(n)
+        assert abs(z.var() - 1.0) < 4 * np.sqrt(2.0 / n)
+        assert abs(stats.skew(z)) < 4 * np.sqrt(6.0 / n)
+        assert abs(stats.kurtosis(z)) < 4 * np.sqrt(24.0 / n)
+        assert stats.kstest(z, "norm").pvalue > 1e-3
+    assert abs(np.corrcoef(z0, z1)[0, 1]) < 4 / np.sqrt(n)
+
+
+def test_noise_stream_block_size_invariant():
+    """Noise is keyed by (global trial, step pair), so the output does not
+    depend on how trials are grouped into blocks — including a padded last
+    block — and is a pure function of the key."""
+    N = 40  # not a multiple of 16 or 32: the wrapper pads the last block
     theta = jnp.tile(jnp.asarray([[0.5, 0.5, 1.0, 4.0, 0.1]], jnp.float32), (N, 1))
     pulses = jnp.ones((N, P), jnp.float32)
-    kw = dict(
-        mu_sensory=1.0,
-        dt=DT,
-        t_max=T_MAX,
-        steps_per_pulse=SPP,
-        n_max=N_MAX,
-        tile_rows=8,
-        interpret=INTERP,
+    run = lambda key, b: np.asarray(
+        ddm_rt_choice_pallas(theta, pulses, key, **_noise_kwargs(block_trials=b))
     )
-    a = np.asarray(ddm_rt_choice_pallas(theta, pulses, jax.random.key(3), **kw))
-    b = np.asarray(ddm_rt_choice_pallas(theta, pulses, jax.random.key(3), **kw))
+    a, b = run(jax.random.key(3), 16), run(jax.random.key(3), 32)
+    assert a.shape == (N, 2)
+    np.testing.assert_array_equal(a, b)
     assert np.all(np.isfinite(a))
     assert set(np.unique(a[:, 1])) <= {0.0, 1.0, 2.0}
     assert np.all((a[:, 0] >= 1e-6) & (a[:, 0] <= T_MAX))
-    np.testing.assert_array_equal(a, b)
+    # Identical trials draw different noise: the stream is per trial.
+    assert len(np.unique(a[:, 0])) > 1
+    assert not np.array_equal(a, run(jax.random.key(4), 16))
+
+
+@pytest.mark.parametrize("collapse_rate", [0.0, 5.0])
+@pytest.mark.parametrize("mu_sensory", [0.0, 1.0])
+def test_kernel_lowers_for_cuda(collapse_rate, mu_sensory):
+    """Interpret mode bypasses the Triton lowering, so lower the kernel for
+    CUDA here, with no GPU: an op the lowering rejects (e.g. negating a
+    constant operand) fails on the CPU instead of on the card."""
+    from functools import partial
+
+    theta = jnp.zeros((256, 5), jnp.float32)
+    pulses = jnp.ones((256, 80), jnp.float32)
+    f = jax.jit(partial(ddm_rt_choice_pallas, collapse_rate=collapse_rate,
+                        mu_sensory=mu_sensory))
+    lowered = f.trace(theta, pulses, jax.random.key(0)).lower(
+        lowering_platforms=("cuda",))
+    assert "__gpu$xla.gpu.triton" in lowered.as_text()
+
+
+def test_wrapper_rejects_bad_shapes():
+    theta = jnp.zeros((4, 5), jnp.float32)
+    with pytest.raises(ValueError, match="power of two"):
+        ddm_rt_choice_pallas(theta, jnp.ones((4, P)), jax.random.key(0),
+                             **_noise_kwargs(block_trials=24))
+    with pytest.raises(ValueError, match="n_chunks"):
+        ddm_rt_choice_pallas(theta, jnp.ones((4, P - 1)), jax.random.key(0),
+                             **_noise_kwargs())
+    with pytest.raises(ValueError, match="even"):
+        ddm_rt_choice_pallas(theta, jnp.ones((4, 20)), jax.random.key(0),
+                             mu_sensory=1.0, dt=DT, t_max=T_MAX,
+                             steps_per_pulse=85, n_max=1700, interpret=True)
